@@ -2,19 +2,15 @@
 
 Generates a synthetic raw burst (no DNGs needed), merges a custom config over
 the defaults, runs the pipeline through the public API, and saves the result.
+Runs on JAX's default device (``JAX_PLATFORMS=cpu`` selects the CPU).
 """
 
-import os
-
 import numpy as np
-
-if os.environ.get("HMSR_FORCE_CPU"):      # same escape hatch as the CLI
-    import jax
-    jax.config.update("jax_platforms", "cpu")
 
 from hmsr_tpu.configs import default_config, merge
 from hmsr_tpu.io.synthetic import make_synthetic_burst, DEFAULT_CFA
 from hmsr_tpu.models.process import process_arrays
+from hmsr_tpu.utils.compile_cache import enable_compile_cache
 
 custom = {
     "scale": 2,
@@ -27,6 +23,7 @@ custom = {
 }
 
 if __name__ == "__main__":
+    enable_compile_cache()
     config = merge(default_config(), custom)
     ref, comps, truth, _ = make_synthetic_burst(256, 256, n_frames=8,
                                                 alpha=1.8e-4, beta=3.0e-6)

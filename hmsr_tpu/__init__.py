@@ -1,11 +1,11 @@
-"""hmsr_tpu — Handheld Multi-frame Super-Resolution, TPU-native.
+"""hmsr_tpu — Handheld Multi-frame Super-Resolution in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation of the Handheld Multi-Frame
-Super-Resolution pipeline (Wronski et al., SIGGRAPH 2019; IPOL 2023 companion),
-with the same capabilities as the Numba-CUDA reference implementation but
-redesigned for TPU: one runtime (XLA), one array type (jnp), fully functional
-pipeline jitted end-to-end, burst processed with ``lax.scan`` over HBM-resident
-frames, and Pallas kernels for the accumulation hot path.
+A from-scratch JAX/XLA implementation of the Handheld Multi-Frame
+Super-Resolution pipeline (Wronski et al., SIGGRAPH 2019; IPOL 2023
+companion), with the same capabilities as the Numba-CUDA reference
+implementation: one runtime (XLA), one array type (jnp), the pipeline jitted
+end-to-end, the burst processed with ``lax.scan`` over device-resident
+frames. It runs on an NVIDIA GPU, and on the CPU for tests.
 """
 
 __version__ = "0.1.0"

@@ -7,9 +7,6 @@ reference run_handheld.py:94-116 and super_resolution.py:239-289).
 """
 
 import copy
-import os
-
-import yaml
 
 
 class ConfigNode(dict):
@@ -48,6 +45,7 @@ class ConfigNode(dict):
         return _unwrap(self)
 
     def to_yaml(self):
+        import yaml
         return yaml.safe_dump(self.to_dict(), sort_keys=False)
 
 
@@ -71,7 +69,8 @@ def _unwrap(value):
 
 
 def load_yaml(path):
-    """Load a YAML file into a ConfigNode."""
+    """Load a YAML file into a ConfigNode (needs PyYAML)."""
+    import yaml
     with open(path, "r") as f:
         data = yaml.safe_load(f)
     return _wrap(data or {})
@@ -108,9 +107,7 @@ def update(config, dotted_key, value):
     return config
 
 
-_DEFAULT_YAML = os.path.join(os.path.dirname(__file__), "default.yaml")
-
-
 def default_config():
-    """The framework's default configuration tree."""
-    return load_yaml(_DEFAULT_YAML)
+    """The framework's default configuration tree (a fresh copy)."""
+    from .defaults import DEFAULTS
+    return _wrap(copy.deepcopy(DEFAULTS))

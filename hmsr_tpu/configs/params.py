@@ -66,8 +66,50 @@ def update_snr_config(config, SNR):
     return config
 
 
+#: ``tpu.*`` keys and values that selected the removed Pallas kernels
+REMOVED_KEYS = ("pallas_interpret", "merge_chunk", "ica_fused")
+REMOVED_VALUES = (("merge_impl", "pallas"), ("ica_impl", "pallas"),
+                  ("robustness_impl", "pallas"), ("pipeline", "chunked"))
+
+#: accepted values of the ``tpu.*`` implementation switches
+IMPL_CHOICES = {
+    "correlation": ("direct", "fft"),
+    "merge_impl": ("auto", "tiled", "gather"),
+    "robustness_impl": ("auto", "tiled", "gather"),
+    "ica_impl": ("auto", "tiled", "gather"),
+    "grey_impl": ("auto", "fft", "matmul", "ct"),
+    "pipeline": ("auto", "scan", "fused", "vmapped"),
+    "fused_impl": ("slab", "tiled"),
+    "finishing_impl": ("auto", "device", "host"),
+}
+
+
+def check_impl_options(config):
+    """Reject removed or unknown ``tpu.*`` implementation options.
+
+    A removed option raises instead of silently falling back to another
+    implementation. Called by :func:`sanitize_config` and by the pipeline
+    builders.
+    """
+    impl = config.get("tpu", None) or {}
+    for key in REMOVED_KEYS:
+        if key in impl:
+            raise ValueError(f"tpu.{key} was removed together with the Pallas "
+                             "kernels it configured; delete it")
+    for key, value in REMOVED_VALUES:
+        if impl.get(key) == value:
+            raise ValueError(f"tpu.{key}={value!r} was removed together with "
+                             f"its Pallas kernel; use one of "
+                             f"{IMPL_CHOICES[key]}")
+    for key, choices in IMPL_CHOICES.items():
+        if key in impl and impl[key] not in choices:
+            raise ValueError(f"tpu.{key}={impl[key]!r} is not one of {choices}")
+    return config
+
+
 def sanitize_config(config, imshape):
     """Validate the configuration tree against the input image shape."""
+    check_impl_options(config)
     if config.mode == "grey" and config.grey_method != "FFT":
         raise NotImplementedError("Grey level images should be obtained with FFT")
 
@@ -121,5 +163,4 @@ def sanitize_config(config, imshape):
         f"Unknown flow upscaling mode {bm.flow_upscale_mode}, should be one of "
         f"{valid_upsample_modes}.")
 
-    assert getattr(config, "tpu", None) is None or config.tpu.correlation in ("direct", "fft")
     return config

@@ -1,4 +1,4 @@
-"""Device-side (jnp) finishing ISP — the default postprocess chain on TPU.
+"""Device-side (jnp) finishing ISP — the default postprocess chain.
 
 The host chain (``raw2rgb.postprocess``: reference raw2rgb.py:212-250) runs
 scipy/NumPy at full SR resolution — at 48MP x 3 channels the three
@@ -16,7 +16,8 @@ delegates to OpenCV there too, raw2rgb.py:153-170):
 - gamma             : clip + x^(1/2.2).
 
 Parity: tests/test_finishing_device.py pins each step to the host chain
-(atol ~1e-5 float32).
+(atol ~1e-5 float32). The convolutions and the colour einsum ask for HIGHEST
+precision, so a GPU does not run them in TF32.
 """
 
 import numpy as np
@@ -25,6 +26,8 @@ import jax
 import jax.numpy as jnp
 
 from .raw2rgb import get_color_matrix
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _gauss_kernel(sigma):
@@ -46,10 +49,12 @@ def gaussian_blur_nearest(img, sigma):
     x = jnp.transpose(img, (2, 0, 1))[:, None]          # (C, 1, H, W)
     x = jnp.pad(x, ((0, 0), (0, 0), (lw, lw), (0, 0)), mode="edge")
     x = jax.lax.conv_general_dilated(
-        x, kern.reshape(1, 1, 2 * lw + 1, 1), (1, 1), "VALID")
+        x, kern.reshape(1, 1, 2 * lw + 1, 1), (1, 1), "VALID",
+        precision=_HIGHEST)
     x = jnp.pad(x, ((0, 0), (0, 0), (0, 0), (lw, lw)), mode="edge")
     x = jax.lax.conv_general_dilated(
-        x, kern.reshape(1, 1, 1, 2 * lw + 1), (1, 1), "VALID")
+        x, kern.reshape(1, 1, 1, 2 * lw + 1), (1, 1), "VALID",
+        precision=_HIGHEST)
     return jnp.transpose(x[:, 0], (1, 2, 0))
 
 
@@ -74,7 +79,8 @@ def make_postprocess_device(do_color_correction=True, do_tonemapping=True,
     def fn(img):
         img = img.astype(jnp.float32)
         if do_color_correction:
-            img = jnp.clip(jnp.einsum("ij,hwj->hwi", cam2rgb, img), 0.0, 1.0)
+            img = jnp.clip(jnp.einsum("ij,hwj->hwi", cam2rgb, img,
+                                      precision=_HIGHEST), 0.0, 1.0)
         if sharpen:
             img = img + amount * (img - gaussian_blur_nearest(img, radius))
         if do_devignette:

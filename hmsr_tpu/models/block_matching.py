@@ -6,10 +6,10 @@ Rebuild of the reference's two matching paths (reference block_matching.py):
   batched FFTs plus a box-filter windowed L2 norm, then ``argmin(L2 - 2*corr)``
   (block_matching.py:20-76). Because the reference zero-pads each reference
   tile to the search size, its circular FFT correlation restricted to the
-  kept +/-R window equals the *direct* linear correlation — so on TPU we
-  evaluate the correlation directly as (2R+1)^2 fused multiply-reduce
-  contractions (MXU/VPU-friendly, no small non-power-of-two FFTs). An FFT
-  backend is kept for cross-checking.
+  kept +/-R window equals the *direct* linear correlation — so we evaluate
+  the correlation directly as (2R+1)^2 fused multiply-reduce contractions
+  (no small non-power-of-two FFTs). An FFT backend is kept for
+  cross-checking.
 
 - **L1**: the reference launches shared-memory CUDA kernels per tile size
   (block_matching.py:105-345) with an exhaustive (2R+1)^2 shift loop. Here it

@@ -8,7 +8,7 @@ shaping (``linear`` or ``hard_threshold`` law), and the covariance
 
 The whole stage is one fused elementwise program per grey pixel — the
 reference's ``cuda_estimate_kernel`` (kernels.py:138-191) becomes a handful
-of VPU ops.
+of elementwise ops.
 
 Parity note: for an exactly zero structure tensor the reference's anisotropy
 ``A = 1 + sqrt((l1-l2)/(l1+l2))`` is NaN (0/0). With the default ``linear``
@@ -55,8 +55,8 @@ def estimate_kernels(img, config):
     Returns the symmetric components stacked channel-first, shape
     (3, gh, gw) = (xx, xy, yy), where the grey grid is the half-res
     Bayer-quad grid in bayer mode and the raw grid in grey mode.
-    (Channel-first component layout: TPU tiling applies to the minor-most
-    two dims, so a trailing (2, 2) matrix layout would pad 2 -> (8, 128).)
+    (Channel-first component layout: every component is a dense 2-D plane,
+    no tiny trailing (2, 2) dims.)
     """
     bayer = config.mode == "bayer"
     mt = config.merging.tuning

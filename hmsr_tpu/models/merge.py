@@ -2,16 +2,14 @@
 (Alg. 11).
 
 Array layout: num/den are channel-first (c, H*s, W*s) and covariances are
-component-stacked (3, gh, gw) — TPU tiling applies to the minor-most two
-dims, so trailing size-3 / (2, 2) dims would pad to (8, 128) tiles.
+component-stacked (3, gh, gw), so every plane is a dense 2-D array.
 
 Rebuild of reference merge.py. The reference dedicates one CUDA thread per
 high-resolution output pixel (merge.py:290-434); here the same gather
 formulation is evaluated as a vectorized program over the full HR grid —
-race-free by construction (each output pixel only reads), which is exactly
-the access pattern TPUs want. A fused Pallas kernel for this stage lives in
-``hmsr_tpu.ops.pallas_merge`` (used when enabled); this module is the
-XLA-fused reference semantics.
+race-free by construction (each output pixel only reads). This module is
+the reference semantics: the fast paths (``merge_tiled``, ``merge_slab``)
+are tested against it.
 
 Conventions preserved exactly (see SURVEY.md "hard parts"):
 - non-ref: LR position ``(hr + 0.5)/s``; flow tile ``int(lr // tile_size)``;

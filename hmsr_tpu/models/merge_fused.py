@@ -1,13 +1,11 @@
 """Burst-fused merge: all frames accumulated per HR tile in one pass.
 
-The scan-ordered pipeline accumulates each frame into HBM-resident num/den
-(4 x 576 MB of accumulator traffic per frame at 48MP). This module inverts
-the loop nest — per HR tile, loop over the burst's frames and accumulate in
-on-chip registers/VMEM, add the reference-frame contribution, divide, and
-write the finished image tile once. Accumulator HBM traffic drops from
-O(frames x image) to O(image); per-frame inputs are read as small dynamic
-windows. This is the "alignment + merge fused over spatial tiles in VMEM"
-plan from BASELINE.json / SURVEY.md section 7.
+The scan-ordered pipeline accumulates each frame into num/den in device
+memory (4 x 576 MB of accumulator traffic per frame at 48MP). This module
+inverts the loop nest — per HR tile, loop over the burst's frames and
+accumulate locally, add the reference-frame contribution, divide, and write
+the finished image tile once. Accumulator traffic drops from O(frames x
+image) to O(image); per-frame inputs are read as small dynamic windows.
 
 Inputs are the per-frame products of the analysis phase (flows, robustness
 maps, covariances), stacked over frames. Mathematically identical to running

@@ -1,8 +1,8 @@
-"""Row-slab fused burst merge — full-lane-width TPU execution.
+"""Row-slab fused burst merge — the default integer-scale merge.
 
-Same math as :mod:`merge_fused` (which processes (B, B) tiles — only 32 of
-the VPU's 128 lanes busy at the default tile size). Here each alignment-tile
-ROW is processed as one (B, ntx*B)-wide slab:
+Same math as :mod:`merge_fused`, which processes small (B, B) tiles. Here
+each alignment-tile ROW is processed as one (B, ntx*B)-wide slab, so every
+elementwise pass runs over a wide array:
 
 1. the ntx per-tile windows are fetched (vmapped dynamic_slice), phase-
    normalized per tile, and concatenated into a wide buffer;

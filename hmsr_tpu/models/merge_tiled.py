@@ -1,4 +1,4 @@
-"""Tile-restructured merge accumulation — the TPU-native hot path.
+"""Tile-restructured merge accumulation — the integer-scale fast path.
 
 Same math as :mod:`hmsr_tpu.models.merge` (Alg. 4 / Alg. 11), restructured
 around the key observation that the optical flow is constant within each
@@ -14,8 +14,8 @@ and everything else is closed-form elementwise math. The per-row staircase
 ``center(R) = floor((R + 0.5)/s + flow) = (R + m) // s`` (m = floor(0.5 +
 s*flow), exact for integer s) turns the 3x3 neighborhood gather into **static
 shifts of an s-times-repeated window slice** — no gather ops at all, just
-dynamic_slice + repeat + shifted slices, which XLA/Mosaic map onto dense VPU
-passes over VMEM-resident tiles.
+dynamic_slice + repeat + shifted slices, which XLA fuses into dense
+elementwise passes over each tile.
 
 Requires an integer scale s >= 1 (the pipeline falls back to the exact
 gather path otherwise); output matches the gather path bit-for-bit up to fp
@@ -23,8 +23,7 @@ reassociation, including the negative-fraction covariance extrapolation at
 the frame border (handled by a linear-extrapolation pad row/column).
 
 Memory: processed in bands of tile rows (lax.map), so peak temporaries are
-O(band) not O(48MP) — this is what lets the 20-frame 12MP burst pipeline fit
-and fuse on one chip.
+O(band) not O(48MP).
 """
 
 import numpy as np

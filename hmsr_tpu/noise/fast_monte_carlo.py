@@ -20,6 +20,7 @@ Reference curve resolution preserved: 1001 float entries (BASELINE.md).
 
 import functools
 import os
+import tempfile
 
 import numpy as np
 import jax
@@ -74,7 +75,8 @@ def _interp_squared(b_array, lo, hi):
 
 
 _CACHE = {}
-_DISK_CACHE_DIR = os.environ.get("HMSR_NOISE_CACHE", "/tmp/hmsr_noise_cache")
+_DISK_CACHE_DIR = os.environ.get(
+    "HMSR_NOISE_CACHE", os.path.join(tempfile.gettempdir(), "hmsr_noise_cache"))
 
 
 def _disk_cache_path(cache_key):

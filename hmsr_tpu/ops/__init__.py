@@ -1,8 +1,8 @@
 """Low-level image / math ops (the reference's device-kernel layer, L4).
 
 Every Numba-CUDA kernel and Torch-CUDA op of the reference maps to a fused
-XLA expression or a Pallas kernel in this package (see SURVEY.md section 2.2
-for the full inventory). All ops are pure functions on jnp arrays, vmap-able,
+XLA expression in this package (see SURVEY.md section 2.2 for the full
+inventory). All ops are pure functions on jnp arrays, vmap-able,
 and shape-static under jit.
 """
 

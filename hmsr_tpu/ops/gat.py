@@ -1,6 +1,6 @@
 """Generalized Anscombe Transform (variance stabilization).
 
-Elementwise VPU op (the reference launches a dedicated CUDA kernel for this,
+Elementwise op (the reference launches a dedicated CUDA kernel for this,
 utils_image.py:117-170); XLA fuses it into the consumer. Noise model:
 ``std^2 = alpha * I + beta`` with ISO-dependent alpha/beta.
 """

@@ -2,8 +2,8 @@
 
 The reference implements these as per-thread CUDA device functions
 (reference linalg.py:14-226). Here every routine is a batched, elementwise
-closed form over arrays of matrix *components* — ideal for the TPU VPU, and
-trivially fusable by XLA into surrounding stencils.
+closed form over arrays of matrix *components*, trivially fusable by XLA
+into surrounding stencils.
 
 Matrices are represented either as stacked components ``(a, b, c, d)`` for
 ``[[a, b], [c, d]]`` or as arrays with trailing ``(2, 2)`` dims; component form

@@ -1,14 +1,13 @@
-"""Small-table lookups without XLA gathers.
+"""Small-table lookups.
 
 The noise-model curves are 1001-entry LUTs indexed at ``round(1000 * x)``
-(reference robustness.py:504-533). An XLA gather of a 1001-entry table at
-(3, H, W) indices costs ~200 ms at 12MP on TPU (measured) — gathers do not
-vectorize on the VPU. This module evaluates the same lookup exactly as a
-two-level one-hot contraction that rides the MXU:
+(reference robustness.py:504-533). The default ``impl="gather"`` indexes the
+table directly. ``impl="onehot"`` evaluates the same lookup without a gather,
+as a two-level one-hot contraction:
 
     idx = 32*hi + lo
     P[n, h] = sum_l onehot_lo[n, l] * T2[h, l]     (one (N,32)@(32,32) matmul)
-    out[n]  = sum_h onehot_hi[n, h] * P[n, h]      (fused VPU select-reduce)
+    out[n]  = sum_h onehot_hi[n, h] * P[n, h]      (select-reduce)
 
 The one-hot rows are exact in bf16 (0/1), and the matmul accumulates the
 single selected f32 entry — results are bit-exact vs the gather.
@@ -23,18 +22,23 @@ from ..utils.types import DEFAULT_FLOAT
 _SPLIT = 32  # 1024 = 32 * 32
 
 
-def lut_lookup(tables, x, scale=1000.0, chunk_elems=None):
+def lut_lookup(tables, x, scale=1000.0, chunk_elems=None, impl="gather"):
     """Exact ``[t[clip(round(scale*x), 0, len(t)-1)] for t in tables]``.
 
     ``tables``: list of 1-D float arrays, all the same length (<= 1024).
     ``x``: float array of any shape. Returns a list of arrays shaped like x.
     ``chunk_elems``: optional bound on elements processed per step (bounds
-    the (N, 32) one-hot temporaries inside larger programs).
+    the (N, 32) one-hot temporaries of ``impl="onehot"``).
     """
     single = not isinstance(tables, (list, tuple))
     if single:
         tables = [tables]
     n_entries = int(tables[0].shape[0])
+    if impl == "gather":
+        idx = jnp.clip(jnp.round(scale * x), 0, n_entries - 1).astype(jnp.int32)
+        outs = [t.astype(DEFAULT_FLOAT)[idx] for t in tables]
+        return outs[0] if single else outs
+    assert impl == "onehot", impl
     assert n_entries <= _SPLIT * _SPLIT, n_entries
 
     t2s = [

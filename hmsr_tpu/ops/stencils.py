@@ -3,7 +3,7 @@
 Replaces the reference's per-pixel CUDA window loops (local stats
 robustness.py:268-294, local min robustness.py:669-687, box-filter conv2d
 block_matching.py:47-62) with shifted-slice reductions that XLA fuses into a
-handful of VPU passes — no gather, no conv, static shapes.
+handful of elementwise passes — no gather, no conv, static shapes.
 """
 
 import jax.numpy as jnp

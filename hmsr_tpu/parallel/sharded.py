@@ -1,20 +1,20 @@
-"""Multi-chip burst processing: DP over frames x SP over the HR accumulator.
+"""Multi-device burst processing: DP over frames x SP over the HR accumulator.
 
-The reference is single-GPU (SURVEY.md section 2.3); the natural TPU scaling
-of this pipeline is:
+The reference is single-GPU (SURVEY.md section 2.3); this pipeline scales
+over a ('frames', 'space') device mesh:
 
 - **frames axis (data parallel)**: burst frames are sharded across devices;
   each device aligns/weights/merges its local frames into partial num/den
-  accumulators, which are ``psum``-reduced over ICI — the accumulator
-  formulation makes the merge embarrassingly reducible;
+  accumulators, which are ``psum``-reduced — the accumulator formulation
+  makes the merge embarrassingly reducible;
 - **space axis (spatial parallel)**: the HR num/den grid is sharded by row
   blocks; each device only evaluates the merge for its block (the row-offset
-  parameter of :func:`hmsr_tpu.models.merge.merge`), bounding HR memory per
-  chip — the long-context/sequence-parallel analogue for this workload.
+  parameter of the merges), bounding HR memory per device.
 
 Reference-frame precomputations are replicated (they are amortized once per
 burst). Communication: one psum of (num, den, acc_r) per burst — bandwidth
-O(HR image), latency-insensitive, rides ICI.
+O(HR image), latency-insensitive. Every device reaches every other at the
+same rate, so the mesh shape follows the algorithm alone.
 
 Frame-count divisibility is handled by zero-weight padding frames: the
 per-frame weight multiplies the robustness mask, so padded frames contribute
@@ -29,10 +29,11 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
+from ..configs.params import check_impl_options
 from ..models.alignment import align, init_alignment
 from ..models.kernels import estimate_kernels
-from ..models.pipeline import flow_to_raw_grid, _on_tpu
-from ..models.merge import merge, merge_ref
+from ..models.pipeline import flow_to_raw_grid, merge_ref_banded
+from ..models.merge import merge
 from ..models.merge_tiled import merge_tiled
 from ..models.robustness import compute_robustness, init_robustness
 from ..ops.accumfix import REFILL_BORDER, normalize_accum
@@ -69,22 +70,17 @@ def make_sharded_pipeline(config, cfa_pattern, white_balance, mesh, jit=True):
     axis (see :func:`pad_frames`). Output is the full (H*s, W*s, c) image,
     row-sharded over the space axis.
     """
+    check_impl_options(config)
     cfa = np.asarray(cfa_pattern)
     wb = [float(x) for x in white_balance]
     n_space = mesh.shape["space"]
 
     bayer = config.mode == "bayer"
     scale = config.scale
-    # per-frame merge: the Pallas kernel (banded row_offset accumulator) on
-    # TPU, the tile-restructured XLA fast path elsewhere; the exact gather
-    # formulation remains the fractional-scale fallback. Multi-chip inherits
-    # the single-chip production kernel (VERDICT r02 #5).
+    # per-frame merge: the tile-restructured fast path for integer scales;
+    # the exact gather formulation remains the fractional-scale fallback
     integer_scale = float(scale) == int(scale)
     impl = config.get("tpu", {}).get("merge_impl", "auto")
-    use_pallas = integer_scale and (
-        impl == "pallas" or (impl == "auto" and _on_tpu()))
-    pallas_interpret = bool(config.get("tpu", {}).get("pallas_interpret",
-                                                      False))
     merge_impl = merge_tiled if (integer_scale and impl != "gather") else merge
     robustness_denoise = bool(config.accumulated_robustness_denoiser.get("enabled", False))
     accumulate_r = bool(robustness_denoise or config.robustness.save_mask)
@@ -111,27 +107,18 @@ def make_sharded_pipeline(config, cfa_pattern, white_balance, mesh, jit=True):
         h, w = ref_img.shape
         out_h, out_w = round(scale * h), round(scale * w)
         n_ch = 3 if bayer else 1
-        if use_pallas:
-            # band-of-tile-rows layout: each space shard owns nb tile rows of
-            # the PADDED accumulator (nty_p*B x NTXP*B); the assembled image
-            # is cropped to (out_h, out_w) by the caller (make_sharded_pipeline)
-            from ..ops.pallas_merge import merge_pallas, padded_accum_shape
-            _, acc_h, acc_w = padded_accum_shape(config, (h, w), n_ch)
-            B = int(config.block_matching.tuning.tile_size) * int(scale)
-            nb = -(-(acc_h // B) // n_space)
-            block, block_w = nb * B, acc_w
-        else:
-            assert out_h % n_space == 0, (out_h, n_space)
-            block, block_w = out_h // n_space, out_w
+        if out_h % n_space:
+            raise ValueError(f"HR height {out_h} must divide into "
+                             f"{n_space} space shards")
+        block, block_w = out_h // n_space, out_w
         row_offset = jax.lax.axis_index("space") * block
 
         # mark the initial carries as device-varying over both mesh axes so
         # the scan carry type matches its (frame- and offset-dependent) output
-        # (no-op when the vma checker is off — see check_vma below)
         vary = ("frames", "space")
 
         def mark_varying(x):
-            return jax.lax.pcast(x, vary, to="varying") if check_vma else x
+            return jax.lax.pcast(x, vary, to="varying")
 
         num = mark_varying(jnp.zeros((n_ch, block, block_w), DEFAULT_FLOAT))
         den = mark_varying(jnp.zeros((n_ch, block, block_w), DEFAULT_FLOAT))
@@ -150,29 +137,26 @@ def make_sharded_pipeline(config, cfa_pattern, white_balance, mesh, jit=True):
             if acc_r is not None:
                 acc_r = acc_r + r
             covs = estimate_kernels(frame, config)
-            if use_pallas:
-                num, den = merge_pallas(frame, flow, covs, r, num, den, cfa,
-                                        config, interpret=pallas_interpret,
-                                        row_offset=row_offset)
-            else:
-                num, den = merge_impl(frame, flow, covs, r, num, den, cfa,
-                                      config, row_offset=row_offset)
+            num, den = merge_impl(frame, flow, covs, r, num, den, cfa,
+                                  config, row_offset=row_offset)
             ys = (flow, r) if debug_mode else None
             return (num, den, acc_r), ys
 
         (num, den, acc_r), ys = jax.lax.scan(step, (num, den, acc_r),
                                              (comps_local, weights_local))
 
-        # reduce partial accumulators over the frame shards (ICI collective)
+        # reduce partial accumulators over the frame shards
         num = jax.lax.psum(num, "frames")
         den = jax.lax.psum(den, "frames")
         if acc_r is not None:
             acc_r = jax.lax.psum(acc_r, "frames")
 
         ref_covs = estimate_kernels(ref_img, config)
-        num, den = merge_ref(ref_img, ref_covs, num, den, cfa, config,
-                             acc_rob=acc_r if robustness_denoise else None,
-                             row_offset=row_offset)
+        # row-banded gather reference merge: bounded temporaries at 48MP
+        num, den = merge_ref_banded(
+            ref_img, ref_covs, num, den, cfa, config,
+            acc_rob=acc_r if robustness_denoise else None,
+            row_offset=row_offset)
         # num/den bands are returned raw; normalization happens on the
         # assembled accumulators OUTSIDE the shard_map (fn below) so the
         # starved-pixel refill of normalize_accum sees full-image context —
@@ -200,28 +184,17 @@ def make_sharded_pipeline(config, cfa_pattern, white_balance, mesh, jit=True):
     out_specs = (P(None, "space"), P(None, "space"), P())
     if debug_mode:
         out_specs = out_specs + (P("frames"), P("frames"))
-    # the Pallas interpret/lowering machinery does not propagate varying-
-    # mesh-axes (vma) through its internal block slicing, so the vma checker
-    # must be off on the Pallas path (JAX's own recommended workaround);
-    # the psum-based replication certifications above hold either way.
-    check_vma = not use_pallas
     sharded = shard_map(
         body, mesh=mesh,
         in_specs=(P(), P("frames"), P("frames"), P(), P(), P()),
         out_specs=out_specs,
-        check_vma=check_vma,
     )
 
     def fn(ref_img, comps, weights, std_curve, diff_curve, grey_consts=None):
         outs = sharded(ref_img, comps, weights, std_curve, diff_curve,
                        grey_consts)
         num, den = outs[0], outs[1]
-        # bands cover the PADDED accumulator on the pallas path; crop to the
-        # true image, then normalize with full-image refill context
-        out_h = round(scale * ref_img.shape[0])
-        out_w = round(scale * ref_img.shape[1])
-        num = num[:, :out_h, :out_w]
-        den = den[:, :out_h, :out_w]
+        # normalize the assembled accumulators with full-image refill context
         image = jnp.transpose(
             normalize_accum(num, den, refill_border=REFILL_BORDER), (1, 2, 0))
         return (image,) + outs[2:]

@@ -1,8 +1,7 @@
 """Core utilities: dtype policy, timing, metrics.
 
-TPU-native rebuild of the reference's ``utils.py`` (see
-/root/reference/handheld_super_resolution/utils.py:16-23 for the dtype policy
-it mirrors). One array library (jax.numpy), one float type (float32).
+Rebuild of the reference's ``utils.py`` (see its lines 16-23 for the dtype
+policy it mirrors). One array library (jax.numpy), one float type (float32).
 """
 
 from .types import (

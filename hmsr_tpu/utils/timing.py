@@ -1,6 +1,6 @@
 """Hierarchical, verbose-gated stage timing.
 
-TPU-native analogue of the reference's ``timer``/``getTime`` print tracing
+JAX analogue of the reference's ``timer``/``getTime`` print tracing
 (reference utils.py:26-30,128-146): ``cuda.synchronize()`` becomes
 ``jax.block_until_ready`` on the stage outputs, and the same verbose-level
 semantics are preserved (verbose>=2 times stages, >=3 times sub-steps).

@@ -2,8 +2,9 @@
 
 float32 everywhere on the compute path (parity with the reference dtype policy,
 reference utils.py:16-23), complex64 for the FFT grey path, and a shared
-division epsilon. TPU MXU/VPU are happiest in f32/bf16; the pipeline keeps f32
-for numerical parity with the reference output.
+division epsilon. The pipeline keeps f32 for numerical parity with the
+reference output; matmuls that could otherwise run in TF32 on a GPU ask for
+HIGHEST precision.
 """
 
 import jax.numpy as jnp

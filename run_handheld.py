@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """CLI driver: burst folder/bundle -> PNG / TIFF / DNG.
 
-TPU-native equivalent of the reference CLI (reference run_handheld.py):
+JAX equivalent of the reference CLI (reference run_handheld.py):
 YAML config + dotted key=value overrides, parameter banner, processing, and
 dispatch save (PNG via cv2, DNG via the exiftool/dng_validate toolchain),
 plus the robustness-mask PNG export.
@@ -9,6 +9,9 @@ plus the robustness-mask PNG export.
 Usage:
     python run_handheld.py --impath <burst_dir_or_npz> --outpath out.png \
         [--config my.yaml] [scale=2 ica.tuning.n_iter=4 ...]
+
+Runs on JAX's default device (``JAX_PLATFORMS=cpu`` selects the CPU);
+``--config`` needs PyYAML.
 """
 
 import argparse
@@ -19,6 +22,7 @@ import numpy as np
 
 from hmsr_tpu import process
 from hmsr_tpu.configs import default_config, load_yaml, merge, update
+from hmsr_tpu.utils.compile_cache import enable_compile_cache
 
 
 def str2bool(v):
@@ -106,10 +110,7 @@ def imsave(fname, rgb_8bit):
 
 
 def main():
-    if os.environ.get("HMSR_FORCE_CPU"):
-        import jax
-        jax.config.update("jax_platforms", "cpu")
-
+    enable_compile_cache()
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, help="Path to custom config YAML")
     parser.add_argument("--impath", type=str, required=True, help="Input burst path")
@@ -135,7 +136,7 @@ def main():
     if outpath.suffix == ".dng":
         config.postprocessing.enabled = False
 
-    print("Processing with handheld super-resolution (TPU)")
+    print("Processing with handheld super-resolution")
     output, debug = process(args.impath, config)
     output = np.clip(np.nan_to_num(output), 0, 1)
     if output.ndim == 3 and output.shape[-1] == 1:

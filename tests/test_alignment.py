@@ -193,148 +193,6 @@ class TestTiledICA:
         np.testing.assert_allclose(a, b, atol=1e-5)
 
 
-class TestPallasICA:
-    @pytest.mark.parametrize("seed", [0, 5])
-    def test_matches_tiled(self, seed):
-        from hmsr_tpu.models.ica import refine_ica_tiled
-        from hmsr_tpu.ops.pallas_ica import refine_ica_pallas
-        rng = np.random.RandomState(seed)
-        img = smooth_image(64, 80, seed=seed)
-        mov = shifted(img, 0.6, -1.1)
-        ts = 16
-        state = init_ica(jnp.asarray(img), ts)
-        flow0 = jnp.asarray((rng.rand(4, 5, 2) * 8 - 4).astype(np.float32))
-        a = np.asarray(refine_ica_tiled(jnp.asarray(img), state,
-                                        jnp.asarray(mov), flow0, ts, 3))
-        b = np.asarray(refine_ica_pallas(jnp.asarray(img), state,
-                                         jnp.asarray(mov), flow0, ts, 3,
-                                         interpret=True))
-        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
-
-    def test_extreme_flow(self):
-        from hmsr_tpu.models.ica import refine_ica_tiled
-        from hmsr_tpu.ops.pallas_ica import refine_ica_pallas
-        img = smooth_image(32, 32, seed=7)
-        state = init_ica(jnp.asarray(img), 16)
-        flow0 = jnp.asarray(np.array([[[500.0, -700.0], [-3.9, 2.2]],
-                                      [[0.1, -0.1], [30.0, 30.0]]], np.float32))
-        a = np.asarray(refine_ica_tiled(jnp.asarray(img), state,
-                                        jnp.asarray(img), flow0, 16, 2))
-        b = np.asarray(refine_ica_pallas(jnp.asarray(img), state,
-                                         jnp.asarray(img), flow0, 16, 2,
-                                         interpret=True))
-        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
-
-    @pytest.mark.parametrize("seed", [0, 3])
-    def test_fused_bm_ica_matches_separate(self, seed):
-        """Fused L1-matching + ICA kernel vs match_l1 -> refine_ica_tiled.
-
-        Images are quantized to 1/256 so the L1 candidate errors are dyadic
-        sums (exact in f32 in any order) — the argmin, and hence the matched
-        integer flow, is then implementation-independent.
-        """
-        from hmsr_tpu.models.block_matching import match_l1
-        from hmsr_tpu.models.ica import refine_ica_tiled
-        from hmsr_tpu.ops.pallas_ica import match_l1_refine_ica_pallas
-        rng = np.random.RandomState(seed)
-        img = np.round(smooth_image(64, 96, seed=seed) * 256) / 256
-        mov = np.round(shifted(img, 1.4, -2.3) * 256) / 256
-        img = img.astype(np.float32)
-        mov = mov.astype(np.float32)
-        ts = 16
-        state = init_ica(jnp.asarray(img), ts)
-        flow0 = jnp.asarray((rng.rand(4, 6, 2) * 6 - 3).astype(np.float32))
-
-        bm = match_l1(jnp.asarray(img), jnp.asarray(mov), flow0, ts, 1)
-        want = np.asarray(refine_ica_tiled(jnp.asarray(img), state,
-                                           jnp.asarray(mov), bm, ts, 3))
-        got = np.asarray(match_l1_refine_ica_pallas(
-            jnp.asarray(img), state, jnp.asarray(mov), flow0, ts, 3,
-            interpret=True))
-        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
-
-    @pytest.mark.parametrize("seed,radius", [(0, 4), (3, 2)])
-    def test_fused_l2_bm_ica_matches_separate(self, seed, radius):
-        """Fused L2-matching + ICA kernel vs match_l2 -> refine_ica_tiled.
-
-        argmin(sum((ref-win)^2)) == argmin(L2win - 2 corr) (the constant
-        sum(ref^2) per tile cancels); quantized images keep the candidate
-        errors well separated so fp ordering differences cannot flip it.
-        """
-        from hmsr_tpu.models.block_matching import match_l2
-        from hmsr_tpu.models.ica import refine_ica_tiled
-        from hmsr_tpu.models.alignment import _unfold_tiles
-        from hmsr_tpu.ops.pallas_ica import match_l2_refine_ica_pallas
-        rng = np.random.RandomState(seed)
-        img = np.round(smooth_image(64, 96, seed=seed) * 256) / 256
-        mov = np.round(shifted(img, -2.4, 1.3) * 256) / 256
-        img = img.astype(np.float32)
-        mov = mov.astype(np.float32)
-        ts = 16
-        state = init_ica(jnp.asarray(img), ts)
-        flow0 = jnp.asarray((rng.rand(4, 6, 2) * 6 - 3).astype(np.float32))
-
-        ref_tiles = _unfold_tiles(jnp.asarray(img), ts)
-        bm = match_l2(ref_tiles, jnp.asarray(mov), flow0, ts, radius)
-        want = np.asarray(refine_ica_tiled(jnp.asarray(img), state,
-                                           jnp.asarray(mov), bm, ts, 3))
-        got = np.asarray(match_l2_refine_ica_pallas(
-            jnp.asarray(img), state, jnp.asarray(mov), flow0, ts, 3, radius,
-            interpret=True))
-        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
-
-    def test_fused_l1_bm_extreme_flow(self):
-        """L1 windows pushed (fully) off the border: the Pallas path's DMA
-        start clamp must reproduce match_l1's zero-fill semantics — a
-        fully-OOB window ties all candidates at sum|ref| and picks the
-        first (ADVICE r02: suspected shifted-real-pixel reads)."""
-        from hmsr_tpu.models.block_matching import match_l1
-        from hmsr_tpu.models.ica import refine_ica_tiled
-        from hmsr_tpu.ops.pallas_ica import match_l1_refine_ica_pallas
-        rng = np.random.RandomState(13)
-        img = np.round(smooth_image(48, 64, seed=13) * 256) / 256
-        mov = np.round(shifted(img, 0.7, -1.2) * 256) / 256
-        img = img.astype(np.float32)
-        mov = mov.astype(np.float32)
-        ts = 16
-        state = init_ica(jnp.asarray(img), ts)
-        # |flow| up to 40 > ts+1: border tiles' windows clamp (some fully OOB)
-        flow0 = jnp.asarray((rng.rand(3, 4, 2) * 80 - 40).astype(np.float32))
-
-        bm = match_l1(jnp.asarray(img), jnp.asarray(mov), flow0, ts, 1)
-        want = np.asarray(refine_ica_tiled(jnp.asarray(img), state,
-                                           jnp.asarray(mov), bm, ts, 2))
-        got = np.asarray(match_l1_refine_ica_pallas(
-            jnp.asarray(img), state, jnp.asarray(mov), flow0, ts, 2,
-            interpret=True))
-        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
-
-    def test_fused_l2_bm_edge_clamp(self):
-        """Windows pushed off the border must use edge-clamp semantics."""
-        from hmsr_tpu.models.block_matching import match_l2
-        from hmsr_tpu.models.ica import refine_ica_tiled
-        from hmsr_tpu.models.alignment import _unfold_tiles
-        from hmsr_tpu.ops.pallas_ica import match_l2_refine_ica_pallas
-        rng = np.random.RandomState(11)
-        img = np.round(smooth_image(48, 64, seed=11) * 256) / 256
-        mov = np.round(shifted(img, 0.9, -1.6) * 256) / 256
-        img = img.astype(np.float32)
-        mov = mov.astype(np.float32)
-        ts = 16
-        state = init_ica(jnp.asarray(img), ts)
-        # large flows push several tiles' windows (partially) off the image
-        flow0 = jnp.asarray((rng.rand(3, 4, 2) * 80 - 40).astype(np.float32))
-
-        ref_tiles = _unfold_tiles(jnp.asarray(img), ts)
-        bm = match_l2(ref_tiles, jnp.asarray(mov), flow0, ts, 4)
-        want = np.asarray(refine_ica_tiled(jnp.asarray(img), state,
-                                           jnp.asarray(mov), bm, ts, 2))
-        got = np.asarray(match_l2_refine_ica_pallas(
-            jnp.asarray(img), state, jnp.asarray(mov), flow0, ts, 2, 4,
-            interpret=True))
-        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
-
-
 class TestAlignOracle:
     """Full pyramid-descent alignment vs the scalar float64 oracle."""
 
@@ -356,43 +214,34 @@ class TestAlignOracle:
         np.testing.assert_allclose(got, want, atol=5e-4, rtol=1e-4)
 
 
-class TestPallasICALargeTiles:
+class TestTiledICALargeTiles:
     @pytest.mark.parametrize("ts", [32, 64])
-    def test_matches_tiled(self, ts):
-        """Ts=32/64 SNR-adaptive geometries (different XG/window layouts);
-        compiled twin in tools/verify_pallas.py."""
+    def test_matches_gather_ica(self, ts):
+        """Ts=32/64 (the SNR-adaptive low-light tile sizes): the tiled
+        windows equal the gather formulation."""
         from hmsr_tpu.models.ica import refine_ica_tiled
-        from hmsr_tpu.ops.pallas_ica import refine_ica_pallas
         rng = np.random.RandomState(ts)
         img = smooth_image(2 * ts, 4 * ts, seed=ts)
         mov = shifted(img, 0.6, -1.1)
         state = init_ica(jnp.asarray(img), ts)
         flow0 = jnp.asarray((rng.rand(2, 4, 2) * 8 - 4).astype(np.float32))
-        want = np.asarray(refine_ica_tiled(jnp.asarray(img), state,
-                                           jnp.asarray(mov), flow0, ts, 3))
-        got = np.asarray(refine_ica_pallas(jnp.asarray(img), state,
-                                           jnp.asarray(mov), flow0, ts, 3,
-                                           interpret=True))
-        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+        want = np.asarray(refine_ica(jnp.asarray(img), state,
+                                     jnp.asarray(mov), flow0, ts, 3))
+        got = np.asarray(refine_ica_tiled(jnp.asarray(img), state,
+                                          jnp.asarray(mov), flow0, ts, 3))
+        np.testing.assert_allclose(got, want, atol=1e-5)
 
-
-class TestFusedSingleKernel:
-    def test_fused_l1_matches_multilaunch(self):
-        """pallas_ica_fused (single-kernel BM+GN) vs the multi-launch path."""
-        from hmsr_tpu.models.block_matching import match_l1
+    @pytest.mark.parametrize("ts", [32, 64])
+    def test_extreme_flow_matches_gather(self, ts):
+        """Windows pushed partly and wholly off the frame at Ts=32/64."""
         from hmsr_tpu.models.ica import refine_ica_tiled
-        from hmsr_tpu.ops.pallas_ica_fused import match_l1_refine_ica_fused
-        rng = np.random.RandomState(7)
-        img = smooth_image(64, 96, seed=7)
-        mov = shifted(img, 1.3, -0.8)
-        ts = 16
+        img = smooth_image(2 * ts, 2 * ts, seed=ts + 1)
         state = init_ica(jnp.asarray(img), ts)
-        flow0 = jnp.asarray((rng.rand(4, 6, 2) * 6 - 3).astype(np.float32))
-
-        bm = match_l1(jnp.asarray(img), jnp.asarray(mov), flow0, ts, 1)
-        want = np.asarray(refine_ica_tiled(jnp.asarray(img), state,
-                                           jnp.asarray(mov), bm, ts, 3))
-        got = np.asarray(match_l1_refine_ica_fused(
-            jnp.asarray(img), state, jnp.asarray(mov), flow0, ts, 3,
-            interpret=True))
-        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+        flow0 = jnp.asarray(np.array(
+            [[[5.0 * ts, -7.0 * ts], [-0.6 * ts, 0.3 * ts]],
+             [[0.1, -0.1], [0.9 * ts, 0.9 * ts]]], np.float32))
+        want = np.asarray(refine_ica(jnp.asarray(img), state,
+                                     jnp.asarray(img), flow0, ts, 2))
+        got = np.asarray(refine_ica_tiled(jnp.asarray(img), state,
+                                          jnp.asarray(img), flow0, ts, 2))
+        np.testing.assert_allclose(got, want, atol=1e-5)

@@ -24,7 +24,7 @@ def test_cli_png_output(tmp_path):
                    alpha=1.8e-4, beta=3.0e-6)
     out = tmp_path / "out.png"
 
-    env = dict(os.environ, HMSR_FORCE_CPU="1", HMSR_MC_PATCHES="2000",
+    env = dict(os.environ, JAX_PLATFORMS="cpu", HMSR_MC_PATCHES="2000",
                PYTHONPATH=f"{REPO}:{os.environ.get('PYTHONPATH', '')}")
     result = subprocess.run(
         [sys.executable, str(REPO / "run_handheld.py"),

@@ -1,62 +1,15 @@
 """Tiny-size production-composition tests for the DEFAULT gate.
 
-The full-size versions of these live in tests/slow_manifest.txt (interpret
--mode Pallas is ~minutes each on CPU); a regression in the TPU production
-path must NOT require --runslow to surface. Each test here is a minimal
-representative of one production-path family (VERDICT r03 weak #6):
+Each test here is a minimal representative of one production-path family:
 
-- the production Pallas merge kernel (interpret mode) vs its XLA twin,
-- the sharded (multi-chip) pipeline routing that same Pallas merge,
-- process_arrays called twice with the TPU-default matmul grey backend
-  (the r02 trace-cache crash).
+- process_arrays called twice with the explicit matmul grey backend
+  (a trace-cache crash once hid there),
+- the frames-vmapped analysis pipeline against the scan pipeline.
 """
 
 import numpy as np
-import pytest
 
-import jax
 import jax.numpy as jnp
-
-
-def test_pallas_merge_interpret_tiny():
-    from tests.test_pallas_merge import run_both
-
-    gn, gd, wn, wd = run_both(2, 16, True, False, seed=7, h=32, w=32)
-    np.testing.assert_allclose(gn, wn, atol=2e-4, rtol=1e-4)
-    np.testing.assert_allclose(gd, wd, atol=2e-4, rtol=1e-4)
-
-
-@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs 4 virtual devices")
-def test_sharded_pallas_merge_tiny():
-    from tests.test_parallel import (DEFAULT_CFA, WB, curves, make_mesh,
-                                     make_pipeline, make_sharded_pipeline,
-                                     make_synthetic_burst, pad_frames,
-                                     small_config, ALPHA, BETA)
-
-    ref, comps, _, _ = make_synthetic_burst(32, 32, n_frames=4, alpha=ALPHA,
-                                            beta=BETA, seed=23)
-    c = small_config()
-    std, diff = curves()
-
-    # force the scan pipeline for the single-chip reference: the sharded
-    # path normalizes the ASSEMBLED accumulators (full-image starved-pixel
-    # refill context, like the scan pipeline), while the CPU-auto fused-slab
-    # path refills per B-row slab — at starved pixels near slab edges the
-    # two (both valid) refills mix different neighborhoods.
-    c.tpu.pipeline = "scan"
-    single = make_pipeline(c, DEFAULT_CFA, WB)
-    want, _ = single(jnp.asarray(ref), jnp.asarray(comps), std, diff)
-
-    c.tpu.merge_impl = "pallas"
-    c.tpu.pallas_interpret = True
-    mesh = make_mesh(2, 2)
-    pipe = make_sharded_pipeline(c, DEFAULT_CFA, WB, mesh)
-    frames, weights = pad_frames(comps, 2)
-    got, _ = pipe(jnp.asarray(ref), jnp.asarray(frames),
-                  jnp.asarray(weights), std, diff)
-    np.testing.assert_allclose(np.nan_to_num(np.asarray(got)),
-                               np.nan_to_num(np.asarray(want)),
-                               atol=5e-4, rtol=1e-3)
 
 
 def test_process_twice_matmul_grey_tiny():
@@ -84,9 +37,7 @@ def test_process_twice_matmul_grey_tiny():
 
 def test_vmapped_pipeline_matches_scan_tiny():
     """tpu.pipeline="vmapped" (frames-batched analysis, merge-only scan)
-    must match the production scan pipeline. Runs the production Pallas
-    merge in interpret mode so the padded-accumulator geometry is the
-    TPU one; analysis runs the XLA paths under jax.vmap."""
+    must match the scan pipeline; both run the tiled per-frame merge."""
     from tests.test_parallel import (DEFAULT_CFA, WB, curves,
                                      make_synthetic_burst, small_config,
                                      ALPHA, BETA)
@@ -100,8 +51,7 @@ def test_vmapped_pipeline_matches_scan_tiny():
     for mode in ("scan", "vmapped"):
         c = small_config()
         c.tpu.pipeline = mode
-        c.tpu.merge_impl = "pallas"
-        c.tpu.pallas_interpret = True
+        c.tpu.merge_impl = "tiled"
         pipe = make_pipeline(c, DEFAULT_CFA, WB)
         img, dbg = pipe(jnp.asarray(ref), jnp.asarray(comps), std, diff)
         outs[mode] = (np.nan_to_num(np.asarray(img)),
@@ -110,29 +60,3 @@ def test_vmapped_pipeline_matches_scan_tiny():
                                atol=5e-4, rtol=1e-3)
     np.testing.assert_allclose(outs["vmapped"][1], outs["scan"][1],
                                atol=1e-4, rtol=1e-4)
-
-
-def test_vmap_pallas_ica_batching_rule():
-    """jax.vmap over the Pallas ICA kernels (the vmapped pipeline folds the
-    frame axis into the kernel grid via the pallas_call batching rule) must
-    equal a per-frame Python loop. Interpret mode exercises the same
-    batched grid spec the TPU lowering sees."""
-    from hmsr_tpu.models.ica import init_ica
-    from hmsr_tpu.ops.pallas_ica import refine_ica_pallas, prep_ica_pallas
-    from tests.test_alignment import smooth_image, shifted
-
-    ts = 16
-    img = smooth_image(32, 48, seed=3).astype(np.float32)
-    movs = np.stack([shifted(img, 0.6 * k - 0.9, 0.4 * k).astype(np.float32)
-                     for k in range(3)])
-    state = init_ica(jnp.asarray(img), ts)
-    flow0 = jnp.zeros((2, 3, 2), jnp.float32)
-    prep = prep_ica_pallas(jnp.asarray(img), state, (2, 3, 2), ts)
-
-    def one(mov):
-        return refine_ica_pallas(jnp.asarray(img), state, mov, flow0, ts, 2,
-                                 interpret=True, prep=prep)
-
-    want = np.stack([np.asarray(one(jnp.asarray(m))) for m in movs])
-    got = np.asarray(jax.vmap(one)(jnp.asarray(movs)))
-    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)

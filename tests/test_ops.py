@@ -281,7 +281,7 @@ class TestGreyMatmul:
     def test_matmul_retrace_no_tracer_leak(self):
         """Regression: the circulant cache once stored trace-local jnp
         constants, so the SECOND jit trace at the same size raised
-        UnexpectedTracerError (BENCH_r02 dark-variant crash). Two fresh
+        UnexpectedTracerError (once seen in a benchmark run). Two fresh
         jits of the same size must both succeed and agree."""
         import jax
         from hmsr_tpu.ops.grey import fft_lowpass_grey_matmul, _CIRC_CACHE
@@ -298,7 +298,7 @@ class TestGreyMatmul:
 
     def test_process_twice_matmul_impl(self):
         """process_arrays must be callable twice in one process with the
-        TPU-default matmul grey backend (the r02 production crash)."""
+        explicit matmul grey backend (a trace-cache crash once hid here)."""
         from hmsr_tpu.configs import default_config
         from hmsr_tpu.models.process import process_arrays
         from hmsr_tpu.ops.grey import _CIRC_CACHE
@@ -322,9 +322,8 @@ class TestGreyMatmul:
 
 
 class TestMxuDeinterleave:
-    """The TPU lowers strided lane slices to cross-lane shuffles (~6x slower
-    at 12MP), so guide-image/decimate/pyramid get MXU selection-matmul
-    twins. These pin them to the slice forms on CPU."""
+    """The explicit selection-matmul forms of guide-image / decimate /
+    pyramid, pinned to the default slice forms."""
 
     def test_guide_image_matmul_exact(self):
         from hmsr_tpu.models.robustness import compute_guide_image
@@ -355,3 +354,27 @@ class TestMxuDeinterleave:
             b = np.asarray(downsample(x, f, impl="matmul"))
             assert a.shape == b.shape
             np.testing.assert_allclose(a, b, rtol=0, atol=5e-7)
+
+
+class TestLut:
+    """The one-hot LUT (explicit option) is bit-exact vs the default gather."""
+
+    @pytest.mark.parametrize("chunk", [None, 1000])
+    def test_onehot_matches_gather(self, chunk):
+        from hmsr_tpu.ops.lut import lut_lookup
+        rng = np.random.RandomState(8)
+        tables = [jnp.asarray(rng.rand(1001).astype(np.float32))
+                  for _ in range(2)]
+        x = jnp.asarray(rng.rand(3, 40, 50).astype(np.float32) * 1.2 - 0.1)
+        want = lut_lookup(tables, x)
+        got = lut_lookup(tables, x, chunk_elems=chunk, impl="onehot")
+        for g, w in zip(got, want):
+            assert g.shape == x.shape
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+    def test_gather_clips_and_rounds(self):
+        from hmsr_tpu.ops.lut import lut_lookup
+        t = jnp.arange(1001, dtype=jnp.float32)
+        x = jnp.asarray([-0.5, 0.0004, 0.0006, 0.5, 2.0], jnp.float32)
+        np.testing.assert_array_equal(np.asarray(lut_lookup(t, x)),
+                                      [0, 0, 1, 500, 1000])

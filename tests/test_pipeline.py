@@ -182,32 +182,6 @@ class TestBaselineConfigs:
         img, _ = pipe(jnp.asarray(ref), jnp.asarray(comps), std, diff)
         assert np.isfinite(np.nan_to_num(np.asarray(img))).all()
 
-    def test_chunked_pipeline_matches_scan(self):
-        """tpu.pipeline=chunked (analyze scan + burst-fused Pallas merge,
-        interpret mode on CPU) vs the scan pipeline with the same Pallas
-        merge — identical composition, so outputs must agree to f32
-        accumulation-order noise."""
-        ref, comps, _, _ = make_synthetic_burst(64, 128, n_frames=4,
-                                                alpha=ALPHA, beta=BETA,
-                                                seed=31)
-        c = small_config(scale=2)
-        sanitize_config(c, (64, 128))
-        std, diff = flat_curves()
-
-        c.tpu.pipeline = "scan"
-        c.tpu.merge_impl = "pallas"
-        c.tpu.pallas_interpret = True
-        img_scan, _ = make_pipeline(c, DEFAULT_CFA, WB, jit=False)(
-            jnp.asarray(ref), jnp.asarray(comps), std, diff)
-
-        c.tpu.pipeline = "chunked"
-        c.tpu.merge_chunk = 2            # 3 comp frames -> 2 chunks, 1 pad
-        img_ch, _ = make_pipeline(c, DEFAULT_CFA, WB, jit=False)(
-            jnp.asarray(ref), jnp.asarray(comps), std, diff)
-        a, b = np.nan_to_num(np.asarray(img_scan)), \
-            np.nan_to_num(np.asarray(img_ch))
-        np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5)
-
     def test_grey_consts_arg_bitexact(self):
         """make_pipeline(jit=True)'s grey-consts wrapper (device circulants
         fed as jit ARGUMENTS) must be BIT-identical to the jit=False
@@ -218,7 +192,7 @@ class TestBaselineConfigs:
         c = small_config(scale=2)
         sanitize_config(c, (64, 128))
         c.tpu.pipeline = "scan"
-        c.tpu.grey_impl = "matmul"     # force the consts-bearing path on CPU
+        c.tpu.grey_impl = "matmul"     # the consts-bearing grey path
         std, diff = flat_curves()
 
         import jax
@@ -230,7 +204,7 @@ class TestBaselineConfigs:
                                       np.nan_to_num(np.asarray(img_fall)))
 
     def test_fused_pipeline_matches_scan(self):
-        """tpu.pipeline=fused (the CPU-auto default: XLA fused-slab merge)
+        """tpu.pipeline=fused (the integer-scale default: fused-slab merge)
         vs the scan pipeline. Same math; the only sanctioned divergence is
         the per-slab starved-pixel refill (merge_slab.py: the refill sees a
         B-row slab instead of the full image — README "Parity notes"), which

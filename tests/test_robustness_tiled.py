@@ -56,61 +56,24 @@ def test_huge_flow_all_invalid():
 
 
 # ---------------------------------------------------------------------------
-# Pallas warp kernel (interpret mode) vs the tiled implementation
+# low-light tile sizes (Ts=32/64) vs the gather implementation
 # ---------------------------------------------------------------------------
 
-from hmsr_tpu.ops.pallas_warp import upscale_warp_pallas
-
-
 @pytest.mark.parametrize("upscale", [1, 2])
-@pytest.mark.parametrize("seed", [0, 4])
-def test_pallas_warp_matches_tiled(upscale, seed):
-    rng = np.random.RandomState(seed)
-    lh, lw = 24, 40
-    H, W = lh * upscale, lw * upscale
-    Ts = 16
-    stats = rng.rand(3, lh, lw).astype(np.float32)
-    ny, nx = -(-H // Ts), -(-W // Ts)
-    flow = ((rng.rand(ny, nx, 2) * 2 - 1) * 6).astype(np.float32)
-
-    want, wvalid = upscale_warp_stats_tiled(jnp.asarray(stats), upscale, Ts,
-                                            jnp.asarray(flow), (H, W),
-                                            band_tile_rows=1)
-    got, gvalid = upscale_warp_pallas(jnp.asarray(stats), upscale, Ts,
-                                      jnp.asarray(flow), (H, W),
-                                      interpret=True)
-    np.testing.assert_array_equal(np.asarray(gvalid), np.asarray(wvalid))
-    m = np.asarray(wvalid)
-    np.testing.assert_allclose(np.asarray(got)[:, m], np.asarray(want)[:, m],
-                               atol=1e-5)
-
-
-def test_pallas_warp_huge_flow():
-    stats = jnp.ones((1, 16, 16))
-    flow = jnp.full((2, 2, 2), 1e6, jnp.float32)
-    got, valid = upscale_warp_pallas(stats, 2, 16, flow, (32, 32),
-                                     interpret=True)
-    assert not bool(np.asarray(valid).any())
-
-
 @pytest.mark.parametrize("Ts", [32, 64])
-def test_pallas_warp_large_tiles(Ts):
-    """Ts=32/64 (low-light SNR geometries); compiled twin in
-    tools/verify_pallas.py."""
-    rng = np.random.RandomState(Ts)
-    upscale = 2
+def test_large_tiles_match_gather(Ts, upscale):
+    rng = np.random.RandomState(Ts + upscale)
     lh, lw = Ts * 3 // 2, Ts * 2
     H, W = lh * upscale, lw * upscale
     stats = rng.rand(3, lh, lw).astype(np.float32)
     ny, nx = -(-H // Ts), -(-W // Ts)
     flow = ((rng.rand(ny, nx, 2) * 2 - 1) * 6).astype(np.float32)
 
-    want, wvalid = upscale_warp_stats_tiled(jnp.asarray(stats), upscale, Ts,
-                                            jnp.asarray(flow), (H, W),
-                                            band_tile_rows=1)
-    got, gvalid = upscale_warp_pallas(jnp.asarray(stats), upscale, Ts,
-                                      jnp.asarray(flow), (H, W),
-                                      interpret=True)
+    want, wvalid = upscale_warp_stats(jnp.asarray(stats), upscale,
+                                      tile_size=Ts, flow=jnp.asarray(flow))
+    got, gvalid = upscale_warp_stats_tiled(jnp.asarray(stats), upscale, Ts,
+                                           jnp.asarray(flow), (H, W),
+                                           band_tile_rows=1)
     np.testing.assert_array_equal(np.asarray(gvalid), np.asarray(wvalid))
     m = np.asarray(wvalid)
     np.testing.assert_allclose(np.asarray(got)[:, m], np.asarray(want)[:, m],

@@ -32,8 +32,6 @@ def main():
                     help="use the linearity-bound interpolation (run_fast_MC)")
     args = ap.parse_args()
 
-    import jax
-    jax.config.update("jax_platforms", "cpu")   # don't queue behind TPU jobs
     from hmsr_tpu.noise import run_fast_MC, monte_carlo_curves
 
     os.makedirs(args.outdir, exist_ok=True)
